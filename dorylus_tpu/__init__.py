@@ -1,9 +1,10 @@
-"""dorylus_tpu — a TPU-native full-graph GNN training framework.
+"""dorylus_tpu — a full-graph GNN training framework in JAX.
 
 A from-scratch rebuild of the capabilities of uclasystem/dorylus (OSDI'21)
-designed for TPU hardware: the reference's graph-server Gather/Scatter tiers
-become XLA sparse aggregation kernels, the serverless ApplyVertex /
-ApplyEdge tier collapses into on-chip dense matmuls on the MXU, and the
+as one compiled accelerator program (run on NVIDIA GPUs): the reference's
+graph-server Gather/Scatter tiers become XLA sparse aggregation kernels,
+the serverless ApplyVertex / ApplyEdge tier collapses into on-device dense
+matmuls, and the
 weight-server parameter-server tier becomes replicated parameters with
 `psum` gradient all-reduce over a `jax.sharding.Mesh`.
 

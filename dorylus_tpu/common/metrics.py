@@ -5,7 +5,7 @@ Reproduces the reference's observability surface: per-stage accumulators
 wall times logged by the scheduler (pipeline.cpp:41-47), and the final
 report written to output_<node> (engine/utils.cpp:109-212).
 
-On TPU the stages are fused inside one compiled step, so stage timing comes
+Under XLA the stages are fused inside one compiled step, so stage timing comes
 from (a) explicit stage-level benchmarking helpers and (b) whole-step epoch
 timing; both feed the same report format.
 """

@@ -12,8 +12,8 @@ from dorylus_tpu.models.base import GraphBatch
 
 def onehot_labels(labels: np.ndarray, num_classes: int) -> np.ndarray:
     """uint8 one-hot: the (V, C) label tensor is pure 0/1 and the loss/
-    eval ops cast rows on the fly — f32 storage wasted 4x HBM at capacity
-    scale (V=3.6M, C=51: 1.84 GB lane-padded vs 0.46 GB)."""
+    eval ops cast rows on the fly — f32 storage would take 4x the memory
+    (V=3.6M, C=51: 0.73 GB vs 0.18 GB)."""
     out = np.zeros((labels.shape[0], num_classes), dtype=np.uint8)
     valid = labels >= 0
     out[np.arange(labels.shape[0])[valid], labels[valid]] = 1
@@ -25,11 +25,11 @@ def build_batch(g: Graph, for_gat: bool = False,
     """Single-shard batch: the whole graph on one device.
 
     edge_arrays=False ships zero-length src/dst/edge_val stubs: the
-    production kernel paths (GCN apply_static, GAT apply_dst/apply_unit)
-    read only their plan arrays at runtime, so the E-sized COO triple is
-    dead device memory (~1.2 GB at the 100M-edge capacity point) that
-    also inflates padded_nbytes and shrinks the fitted msgs chunk guard
-    (same idiom as the sharded fused path's (n, 0) split stubs)."""
+    production kernel paths (GCN apply_static, GAT apply_dst) read only
+    their plan arrays at runtime, so the E-sized COO triple is dead
+    device memory (~1.2 GB at 100M edges) that also shrinks the fitted
+    msgs chunk guard (same idiom as the sharded fused path's (n, 0)
+    split stubs)."""
     train_m, val_m, test_m = g.masks()
     if edge_arrays:
         edge_val = np.ones(g.num_edges, np.float32) if for_gat else g.edge_norm

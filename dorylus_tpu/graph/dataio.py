@@ -13,7 +13,7 @@ Formats (all little-endian, from /root/reference/inputs):
 
 The reference's per-node preprocessed cache (graph.<id>.bin,
 graph.cpp:7-115) is not reproduced byte-for-byte: partitioning here
-produces padded TPU shards directly (graph/partition.py). Loading the
+produces padded device shards directly (graph/partition.py). Loading the
 *source* formats means every dataset prepared for the reference loads
 unchanged.
 """

@@ -50,7 +50,7 @@ class Graph:
         """Sort edges into CSC order (by dst) and compute degrees + GCN
         normalization values. CSC ordering mirrors the reference's
         forwardAdj layout (graph.hpp:96-98) and enables sorted segment
-        sums on TPU. Uses the native graphcore library when available
+        sums. Uses the native graphcore library when available
         (counting sort + parallel norm computation)."""
         from dorylus_tpu import native
 
@@ -108,6 +108,25 @@ class Graph:
         key = key[new]
         return ((key >> np.uint64(32)).astype(np.int32),
                 (key & np.uint64(0xFFFFFFFF)).astype(np.int32))
+
+
+def random_graph(num_vertices: int, avg_degree: int, feature_dim: int,
+                 num_classes: int, seed: int = 0) -> Graph:
+    """Uniform random directed graph with num_vertices * avg_degree edges,
+    N(0, 1) features and uniform labels — without the O(E log E) dedup of
+    synthetic_graph (benchmark scale: the Reddit shape is
+    random_graph(232_965, 50, 602, 41))."""
+    rng = np.random.default_rng(seed)
+    e = num_vertices * avg_degree
+    src = rng.integers(0, num_vertices, size=e, dtype=np.int64).astype(np.int32)
+    dst = rng.integers(0, num_vertices, size=e, dtype=np.int64).astype(np.int32)
+    return Graph(
+        num_vertices=num_vertices, src=src, dst=dst,
+        features=rng.normal(0, 1, size=(num_vertices, feature_dim)
+                            ).astype(np.float32),
+        labels=rng.integers(0, num_classes, size=num_vertices).astype(np.int32),
+        num_classes=num_classes,
+    ).finalize()
 
 
 def synthetic_graph(

@@ -1,6 +1,6 @@
 """Vertex partitioning + halo (ghost) exchange plans.
 
-The TPU-native redesign of the reference's partition pipeline:
+The single-program redesign of the reference's partition pipeline:
   - inputs/partitioner.cpp (METIS k-way vertex partition)
   - DataLoader::preprocess (dataloader.cpp:225-330): edge classification
     local/remote, ghost discovery, ghost degrees, per-edge norm factors
@@ -55,7 +55,7 @@ class Shard:
     # Interior/boundary split of the same edges (overlap path): interior
     # src index local rows [0, vp); boundary src index the ghost table
     # [0, n_shards*max_h). Aggregating interior edges has no data
-    # dependency on the halo all_to_all, so XLA overlaps them — the TPU
+    # dependency on the halo all_to_all, so XLA overlaps them — the
     # analog of the reference overlapping local compute with scatter.
     src_int: np.ndarray = None  # (ep_int,) int32
     dst_int: np.ndarray = None

@@ -1,11 +1,10 @@
 """Vertex reordering for locality.
 
 The reference gets locality from METIS partitioning (inputs/partitioner.cpp)
-and otherwise keeps file order. On TPU, locality buys smaller edge-cuts
+and otherwise keeps file order. Here, locality buys smaller edge-cuts
 under the range partitioner — and therefore smaller halo exchanges — the
-role METIS plays for the reference. It does NOT speed the aggregation
-gather itself: tools/probe_roofline.py measured the XLA gather at a
-pattern-independent ~85 GB/s (random == sorted == local-window indices).
+role METIS plays for the reference. Ascending-degree order also makes the
+hyb kernel's output permutation the identity (ops/hyb_spmm.py).
 
 These reorderings are optional preprocessing; the train/val/test split
 stays bound to the ORIGINAL vertex indices (src/common/utils.hpp:60-62

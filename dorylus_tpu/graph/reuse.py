@@ -1,9 +1,7 @@
 """Redundancy-free aggregation: common neighbor-PAIR reuse (HAG-style).
 
-Round-3 probe_narrow_gather.py measured the aggregation gather to be
-ROW-rate-bound below 2 bytes/element (~540 M slot rows/s on v5e for bf16
-AND int8 — narrower tables gain nothing), so the only remaining lever for
-the hot kernel is gathering FEWER ROWS. On real graphs neighbor lists
+The lever here is gathering FEWER ROWS in the hot kernel. On real graphs
+neighbor lists
 overlap heavily; a pair of vertices (a, b) that appears in many
 destinations' neighbor lists can be aggregated ONCE into a pair row
 h[a] + h[b] appended to the gather table, and every destination that

@@ -3,8 +3,8 @@
 A model is a thin namespace of pure functions over a params pytree and a
 `GraphBatch` pytree. The GraphBatch is the on-device analog of the
 reference engine's per-layer savedNNTensors/savedEdgeTensors maps
-(engine.hpp:157-158) — except that on TPU the whole layer pipeline is one
-jitted function, so intermediate tensors live in registers/HBM managed by
+(engine.hpp:157-158) — except that here the whole layer pipeline is one
+jitted function, so intermediate tensors live in device memory managed by
 XLA rather than in named maps.
 """
 

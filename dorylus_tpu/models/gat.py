@@ -39,12 +39,12 @@ from dorylus_tpu.models import init as winit
 from dorylus_tpu.models.base import GraphBatch, Params
 from dorylus_tpu.models.gcn import HaloFn
 from dorylus_tpu.ops.activations import leaky_relu, masked_softmax_xent, row_softmax
-from dorylus_tpu.ops.spmm import spmm_dst_blocked, spmm_edgewise, take_sorted
+from dorylus_tpu.ops.spmm import spmm_edgewise, take_sorted
 
 
 class GAT:
     def __init__(self, layers: LayerConfig, sorted_dst: bool = True,
-                 edge_chunk: int = 0, spmm_op=None, blk_rows: int = 0,
+                 edge_chunk: int = 0, spmm_op=None,
                  spmm_split=None, feat_shards: int = 1):
         self.layers = layers
         self.sorted_dst = sorted_dst
@@ -57,7 +57,6 @@ class GAT:
         # Optional bound SpMM op; its fused-SDDMM backward supplies the
         # attention-value gradients (replacing gat hand-derived backward).
         self.spmm_op = spmm_op
-        self.blk_rows = blk_rows  # dst-blocked aggregation (large V)
         # (interior, boundary) degree-op pair for the halo-overlap path;
         # attention is dst-functional, so BOTH passes weight by the same
         # local leaky(z·a) and their sum equals the combined kernel.
@@ -228,10 +227,9 @@ class GAT:
                     att = leaky_relu(az) * edge_mask
             else:
                 table = halo(z) if halo is not None else z
-                blk = (batch.aux or {}).get("blk")
                 use_dst = (self.spmm_op is not None
                            and hasattr(self.spmm_op, "apply_dst")
-                           and blk is None and not return_intermediates)
+                           and not return_intermediates)
                 if use_dst:
                     # Dorylus attention is a function of the DESTINATION
                     # only, so no per-edge value array need ever exist:
@@ -242,38 +240,14 @@ class GAT:
                     az = att = None
                     arrays = (batch.aux or {}).get("spmm",
                                                    self.spmm_op.arrays)
-                    from dorylus_tpu.models.gcn import past_agg_cliff
-                    if (halo is None and h.shape[1] <= 128
-                            and past_agg_cliff(self.spmm_op, h.shape[0],
-                                               z.shape[1])):
-                        # Regime-aware ordering: dst-only attention
-                        # factors through the transform — sum_u A_e z_u =
-                        # att_v * (sum_u h_u) @ W — so past the gather
-                        # cliff aggregate h at its (<=128-lane) input
-                        # width instead of the narrow z (see
-                        # AGG_CLIFF_BYTES in models/gcn.py; measured
-                        # tools/probe_reuse_width.py). The extra matmul
-                        # is the same shape as h @ W (MXU-cheap).
-                        # apply_unit = the ops' unit-weight entry point:
-                        # no (V,F) ones multiply forward, no O(V·F)
-                        # row-dot backward for a constant cotangent.
-                        u = self.spmm_op.apply_unit(arrays, h)
-                        agg = (jnp.dot(
-                            u, params[f"w{l}"].astype(compute_dtype),
-                            preferred_element_type=jnp.float32)
-                            * leaky_relu(za)[:, None]).astype(z.dtype)
-                    else:
-                        agg = self.spmm_op.apply_dst(
-                            arrays, table, leaky_relu(za)).astype(z.dtype)
+                    agg = self.spmm_op.apply_dst(
+                        arrays, table, leaky_relu(za)).astype(z.dtype)
                 else:
                     # Sorted-VJP gather: the backward of za[dst] is
                     # otherwise an |E|-sized scatter-add into (Vp,).
                     az = take_sorted(za, batch.dst, za.shape[0])  # (Ep,)
                     att = leaky_relu(az) * edge_mask
-                    if blk is not None and self.blk_rows:
-                        agg = spmm_dst_blocked(table, blk, z.shape[0],
-                                               self.blk_rows, val_flat=att)
-                    elif self.spmm_op is not None:
+                    if self.spmm_op is not None:
                         arrays = (batch.aux or {}).get(
                             "spmm", self.spmm_op.arrays)
                         agg = self.spmm_op.apply(arrays, table,

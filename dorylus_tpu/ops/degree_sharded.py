@@ -32,7 +32,7 @@ def _stack_uniform(plans: list[dict], num_out: int, sentinel: int) -> dict:
     """Pad each plan's block rows to the cross-shard max and stack.
 
     Blocked-output maps (out_idx/out_loc, present when num_out is past
-    the segment_sum VMEM cliff) pad their data-dependent row dim to the
+    out_block_rows is set) pad their data-dependent row dim to the
     cross-shard max with DEAD part rows (padded rows carry live_cnt 0 /
     zero vals, so gathering them adds zeros) aimed at the block's last
     output slot."""
@@ -78,7 +78,7 @@ class ShardedDegreeSpMM:
                  row_chunk: int = 0, gather_dtype=None,
                  feature_dim: int = 128, static_vals: bool = False,
                  edges: str = "combined",
-                 out_block_rows: int | None = None):
+                 out_block_rows: int = 0):
         """static_vals: bake each shard's edge values (GCN norms; pads 0)
         into the plans so apply_static() skips the runtime value gather.
 
@@ -109,19 +109,9 @@ class ShardedDegreeSpMM:
         assert all(len(shard_edges(s)[0]) == ep for s in sharded.shards), \
             "shards must share a padded edge count"
 
-        # Output blocking past the segment_sum VMEM cliff, per DIRECTION:
-        # the bwd plan reduces onto the (vp + n*max_h)-row table, which
-        # crosses the cliff well before per-shard vp does (the round-4
-        # hardcoded 0 silently re-paid the measured ~12x collapse at
-        # friendster-scale V with --kernel degree; round-5 review).
-        # (Narrow-mode note: single-op DegreeSpMM measured flat ~6% ahead
-        # of blocked at V=1.6M bf16 and defaults unblocked; here blocking
-        # stays on past the cliff regardless of dtype — the guarded
-        # failure mode is the ~12x collapse, the unguarded upside ~6%.)
-        from dorylus_tpu.ops.degree_spmm import _OUT_BLOCK_AUTO_V
-        obr = 131072 if out_block_rows is None else out_block_rows  # 0=off
-        fwd_obr = obr if (obr and vp > _OUT_BLOCK_AUTO_V) else 0
-        bwd_obr = obr if (obr and table > _OUT_BLOCK_AUTO_V) else 0
+        # Explicit output blocking of the final reduce applies to both
+        # directions (the bwd plan reduces onto the vp + n*max_h table).
+        fwd_obr = bwd_obr = out_block_rows
 
         fwd_plans, bwd_plans = [], []
         for s in sharded.shards:
@@ -168,11 +158,11 @@ class ShardedDegreeSpMM:
                             and np.dtype(gather_dtype).itemsize < 4):
                         # Narrow mode multiplies slot weights in the msgs
                         # dtype anyway — ship pre-cast and halve the
-                        # (n, R, B) vals stack's HBM (DegreeSpMM idiom).
+                        # (n, R, B) vals stack's memory (DegreeSpMM idiom).
                         p["vals"] = p["vals"].astype(gather_dtype)
 
         if row_chunk == 0:
-            # OOM guard only (~2.4x slower when active) — see DegreeSpMM.
+            # OOM guard only (several times slower when active) — see DegreeSpMM.
             slots = block * max(
                 max(p["slot_src"].shape[0] for p in fwd_plans),
                 max(p["slot_src"].shape[0] for p in bwd_plans))

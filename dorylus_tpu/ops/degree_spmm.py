@@ -5,13 +5,9 @@ Replaces the reference's per-vertex CSC aggregation loop
 the variable-degree segment reduction into fixed-width work XLA runs at
 streaming bandwidth.
 
-Why (measured on TPU v5e, Reddit-shaped graph V=233k E=11.6M F=128,
-tools/probe_gather.py):
-  - flat gather+sorted-segment_sum SpMM: 175 ms  (67 M edges/s)
-      gather h[src]            68 ms  (87 GB/s)
-      sorted segment_sum      108 ms  (55 GB/s)
-  - fixed-width reshape(...).sum(1) reduce of the same bytes: 12 ms
-    (493 GB/s) — segment_sum wastes ~9x on the variable-length segments.
+A flat gather + variable-length sorted segment_sum spends most of its
+time on the ragged segments; a fixed-width reshape(...).sum(1) reduce of
+the same bytes is a dense, fusable reduction.
 
 Layout: edges arrive dst-sorted (CSC). Each vertex's edge run is padded to
 a multiple of `block` slots; pad slots carry val=0 and gather an arbitrary
@@ -27,16 +23,7 @@ dval[e] = <h[src e], gout[dst e]> is one extra F-reduction against
 h[block_row] plus an E-element gather through the inverse slot map (no
 scatter, no second sweep over the edge bytes). This replaces the
 reference's hand-written backward aggregate (gcn_ops.cpp:130-153 dir
-BACKWARD) and keeps autodiff from emitting XLA scatter-add (measured
-~1.15 s for 11.6M edges on v5e).
-
-Measured (v5e, V=233k E=11.6M F=128, block=16, tools/probe_degree_bwd.py;
-data-dependent cotangents — a constant-ones cotangent lets XLA DCE the
-forward and fold the gathers, inflating grad numbers ~10x):
-                        degree      edgewise     speedup
-  fwd                    89 ms       171 ms       1.9x
-  fwd+dh     (GCN)      172 ms       440 ms       2.6x
-  fwd+dh+dval (GAT)     264 ms       444 ms       1.7x
+BACKWARD) and keeps autodiff from emitting an XLA scatter-add.
 
 The plan MUST ride jit arguments (the batch
 pytree), never closures.
@@ -51,27 +38,24 @@ import jax.numpy as jnp
 import numpy as np
 
 
-_OUT_BLOCK_AUTO_V = 400_000  # segment_sum VMEM cliff (see ops/spmm.py)
-_ROW_CHUNK_BYTES = 8 << 30  # auto row_chunk once (slots, F) nears HBM
+_ROW_CHUNK_BYTES = 8 << 30  # auto row_chunk once (slots, F) is this big
 
 
 def build_degree_plan(src: np.ndarray, dst: np.ndarray,
                       edge_ids: np.ndarray | None,
                       num_out: int, block: int = 16,
-                      out_block_rows: int | None = None) -> dict:
+                      out_block_rows: int = 0) -> dict:
     """Host-side plan. Requires dst ascending (CSC order).
 
     edge_ids: original edge index of each (src, dst) pair — identity for
     the forward plan, the transpose permutation for the backward plan —
     so dynamic edge values (GAT attention) can be routed into slots.
 
-    out_block_rows: block the FINAL segment reduction's output rows so it
-    stays under the large-V segment_sum cliff (ops/spmm.py
-    build_dst_blocks: ~12x collapse once the (V, F) output exceeds VMEM).
-    None = auto (on past 400k output rows), 0 = off, >0 = explicit block
-    height. Adds "out_idx"/"out_loc" (nb, rb) maps: per output block, the
-    part-rows that feed it (padded with the R sentinel row) and their
-    block-local destination rows.
+    out_block_rows: block the FINAL segment reduction's output rows into
+    scanned blocks of this height (0 = one plain segment_sum). Adds
+    "out_idx"/"out_loc" (nb, rb) maps: per output block, the part-rows
+    that feed it (padded with the R sentinel row) and their block-local
+    destination rows.
     """
     e = len(src)
     src = np.asarray(src, np.int64)
@@ -109,8 +93,6 @@ def build_degree_plan(src: np.ndarray, dst: np.ndarray,
         # 16x fewer mask bytes than a dense (R, B) array (see _slot_live).
         "live_cnt": np.bincount(slot // block, minlength=r).astype(np.int32),
     }
-    if out_block_rows is None:
-        out_block_rows = 131072 if num_out > _OUT_BLOCK_AUTO_V else 0
     if out_block_rows:
         nb = -(-num_out // out_block_rows)
         bounds = np.searchsorted(block_row, np.arange(nb + 1) * out_block_rows)
@@ -148,7 +130,7 @@ def _degree_pass(h_table: jnp.ndarray, plan: dict, num_out: int,
     expensive index op in the pass.
 
     out_block_rows > 0 (with the plan's out_idx/out_loc maps) blocks the
-    final segment reduction's output rows below the large-V VMEM cliff.
+    final segment reduction's output rows.
     """
     if vals is None:
         val_ext = jnp.concatenate([val.astype(jnp.float32),
@@ -159,10 +141,8 @@ def _degree_pass(h_table: jnp.ndarray, plan: dict, num_out: int,
     # Low-precision gather mode: keep the gathered messages in the table
     # dtype through the multiply and accumulate in f32 only inside the
     # reduction. Writing gather(x).astype(f32) instead lets XLA hoist the
-    # convert BEFORE the gather, which erases the entire benefit: the TPU
-    # gather is byte-rate-bound at a pattern-independent ~85 GB/s
-    # (tools/probe_roofline.py — random == sorted == local-window), so a
-    # bf16 table halves gather time. Accumulation stays f32.
+    # convert BEFORE the gather, which gathers f32 rows and erases the
+    # halved gather bytes. Accumulation stays f32.
     narrow = gather_dtype is not None and jnp.dtype(gather_dtype).itemsize < 4
 
     def reduce_rows(s, v, hb_):
@@ -224,9 +204,8 @@ def spmm_degree(h_table: jnp.ndarray, plan: dict, num_out: int,
                 gather_dtype=None) -> jnp.ndarray:
     """out[v] = sum_{e: dst[e]=v} val[e] * h_table[src[e]] over a
     build_degree_plan layout. val=None uses the plan's baked static slot
-    values ("vals"). Forward only (no custom VJP wrapper — the wrapper
-    costs ~20% in fwd-only microbenchmarks through fusion differences);
-    differentiable training goes through DegreeSpMM.apply*."""
+    values ("vals"). Forward only (no custom VJP wrapper); differentiable
+    training goes through DegreeSpMM.apply*."""
     plan = dict(plan)
     obr = plan.pop("_out_block_rows", 0)
     vals = plan.get("vals") if val is None else None
@@ -238,7 +217,7 @@ def spmm_degree(h_table: jnp.ndarray, plan: dict, num_out: int,
 def degree_spmm_apply(static, arrs, h, val):
     """static: (num_in, num_out, row_chunk, gather_dtype,
     fwd_out_block_rows, bwd_out_block_rows) — the last two block the final
-    reduces below the large-V cliff (0 = plain segment_sum)."""
+    reduces (0 = plain segment_sum)."""
     _, num_out, row_chunk, gdt = static[:4]
     fwd_obr = static[4] if len(static) > 4 else 0
     return _degree_pass(h, arrs["fwd"], num_out, val, row_chunk, gdt,
@@ -384,8 +363,7 @@ def degree_spmm_static_apply(static, arrs, h):
     """SpMM with STATIC edge values baked into the plans as (R, B) slot
     arrays ("vals", built host-side at construction). GCN norms never
     change, so the per-slot value gather (an R*B-index gather from an
-    E-sized table — measured 62 -> 41 ms fwd at Reddit shape,
-    tools/probe_static_vals.py) is pure waste in that model."""
+    E-sized table) is pure waste in that model."""
     _, num_out, row_chunk, gdt = static[:4]
     return _degree_pass(h, arrs["fwd"], num_out, None, row_chunk, gdt,
                         out_block_rows=static[4],
@@ -424,11 +402,11 @@ class DegreeSpMM:
 
     def __init__(self, src, dst, num_in: int, num_out: int, block: int = 16,
                  row_chunk: int = 0, gather_dtype=None,
-                 out_block_rows: int | None = None, feature_dim: int = 128,
+                 out_block_rows: int = 0, feature_dim: int = 128,
                  static_val=None):
         """static_val: per-edge values known at construction (GCN norms) —
         baked into the plans as (R, B) slot arrays so apply_static() skips
-        the runtime per-slot value gather (tools/probe_static_vals.py)."""
+        the runtime per-slot value gather."""
         src = np.asarray(src)
         dst = np.asarray(dst)
         e = len(src)
@@ -438,12 +416,6 @@ class DegreeSpMM:
         self.block = block
         narrow = (gather_dtype is not None
                   and np.dtype(gather_dtype).itemsize < 4)
-        if narrow and out_block_rows is None:
-            # Narrow mode compiles + runs fastest UNCHUNKED with a plain
-            # flat segment_sum even at V=1.6M (tools/probe_largev2.py:
-            # flat 82.9 M edges/s > blocked 77.7) — the round-1 "large-V
-            # segment_sum cliff" was misattributed.
-            out_block_rows = 0
         fwd = build_degree_plan(src, dst, None, num_out, block,
                                 out_block_rows)
         bwd = build_degree_plan(dst[order], src[order], order, num_in, block,
@@ -456,25 +428,18 @@ class DegreeSpMM:
             if narrow:
                 # Narrow mode multiplies slot weights in the msgs dtype
                 # anyway (_degree_pass reduce_rows): ship them pre-cast
-                # and halve their HBM — one host-side rounding instead of
+                # and halve their memory — one host-side rounding instead of
                 # a per-pass (R, B) convert (same idiom as hyb _cast_vals).
                 fwd["vals"] = fwd["vals"].astype(gather_dtype)
                 bwd["vals"] = bwd["vals"].astype(gather_dtype)
         if row_chunk == 0:
-            # XLA materializes the (slots, F) message tensor at scale
-            # (measured: f32 compile OOM at 13 GB for V=1.6M E=24M F=128,
-            # tools/probe_largev2.py). Chunk only when it would approach
-            # HBM — the scan-chunked pass is ~2.4x slower
-            # (tools/probe_degree_rowchunk.py), so this is strictly an
-            # OOM guard, not an optimization. feature_dim = the widest
-            # feature dim this op will aggregate; bf16 messages halve the
-            # estimate (narrow mode ran unchunked at 6.9 GB worst case).
+            # XLA materializes the (slots, F) message tensor. Chunk only
+            # when it would be very large — the scan-chunked pass is
+            # several times slower, so this is strictly an OOM guard, not
+            # an optimization. feature_dim = the widest feature dim this
+            # op will aggregate; bf16 messages halve the estimate.
             slots = max(fwd["slot_src"].size, bwd["slot_src"].size)
-            # TPU tiles pad the lane dim to 128: a (R, B, F<128) message
-            # tensor occupies F=128 worth of HBM (measured 2.0x expansion
-            # in compile OOM dumps at F=64 — the amazon config).
-            eff_f = max(feature_dim, 128)
-            if slots * eff_f * (2 if narrow else 4) > _ROW_CHUNK_BYTES:
+            if slots * feature_dim * (2 if narrow else 4) > _ROW_CHUNK_BYTES:
                 row_chunk = 1 << 18
         fwd_obr = fwd.pop("_out_block_rows", 0)
         bwd_obr = bwd.pop("_out_block_rows", 0)

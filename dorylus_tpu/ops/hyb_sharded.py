@@ -1,8 +1,7 @@
 """Sharded hybrid-ELL SpMM: uniform per-shard hyb plans under one SPMD
 program.
 
-Same role as ops/degree_sharded.py but for the hyb kernel (the measured
-1.16-1.21x fwd+bwd win over the degree layout, tools/probe_hyb.py): each
+Same role as ops/degree_sharded.py but for the hyb kernel: each
 vertex shard gets a build_hyb_plan pair (fwd over its dst-sorted edges,
 bwd over the transpose), and shard_map requires every shard's plan to
 share identical static shapes. Hyb plans have more shape freedom than
@@ -331,8 +330,7 @@ class ShardedHybSpMM:
         it is not a hub); pure-bucket rows gather from the local (vp, F)
         features directly — no data dependency on the halo collective —
         while mixed buckets (and the hub top) gather from the
-        concatenated (local ‖ ghost) table. Against the round-4
-        two-plan split (hyb overlap 0.89x, weak_scaling_hyb_r4.json)
+        concatenated (local ‖ ghost) table. Against a two-plan split
         this keeps ONE inverse permutation, ONE output assembly and no
         (V, F) + (V, F) add; against the combined serial plan it exposes
         the pure gathers to XLA's scheduler alongside the in-flight

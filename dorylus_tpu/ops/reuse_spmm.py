@@ -4,8 +4,6 @@ Wraps ops/hyb_spmm.py's mask-mode pass with the graph/reuse.py pair
 rewrite: the gather table is h with appended pair rows (h[a] + h[b] for
 mined common neighbor pairs), and the slot plans are built from the
 rewritten edge list — fewer gathered rows for the same exact operator.
-The gather is ROW-rate-bound (tools/probe_narrow_gather.py), so the row
-reduction converts ~1:1 into kernel time on overlap-heavy graphs.
 
 Only unit-weight inner sums are supported — which covers both production
 models (see graph/reuse.py): GCN through its rank-1 norm factorization
@@ -91,9 +89,8 @@ class ReuseSpMM:
                  feature_dim: int = 128, rank1_factor=None,
                  min_uses: int = 3, passes: int = 1, max_pairs: int = 0):
         """max_pairs: per-pass pair budget (0 = unlimited) — mine_reuse
-        keeps the highest-count pairs, bounding the appended table rows
-        so a below-cliff table cannot be pushed over the gather regime
-        cliff (the measured Reddit-scale failure; engine auto-caps)."""
+        keeps the highest-count pairs, bounding the appended table
+        rows."""
         assert num_in == num_out, "reuse op is single-shard (square) only"
         src = np.asarray(src)
         dst = np.asarray(dst)

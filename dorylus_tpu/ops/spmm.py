@@ -1,9 +1,9 @@
-"""Sparse aggregation (SpMM) — the TPU-native Gather phase.
+"""Sparse aggregation (SpMM) — the Gather phase.
 
 Replaces the reference's per-vertex CSC/CSR loops (Engine::aggregateGCN,
 src/graph-server/engine/ops/gcn_ops.cpp:130-191 and aggregateGAT,
 gat_ops.cpp:173-243) with edge-parallel gather + segment-sum, which XLA
-lowers to vectorized dynamic-gather / scatter-add on TPU. The backward pass
+lowers to vectorized gathers and segment reductions. The backward pass
 (the reference's hand-written backward aggregate over the transposed
 adjacency) falls out of autodiff: the transpose of
 `gather(src) -> scale -> scatter_add(dst)` is exactly
@@ -37,8 +37,9 @@ def spmm_edgewise(
 
     edge_chunk > 0: process edges in chunks of that size under lax.scan so
     the gathered message tensor (|E|, F) is never materialized — required
-    for Reddit/Friendster-scale graphs where |E|·F·4B >> HBM. The chunk
-    grid is the TPU analog of the reference's per-lambda edge chunks
+    for Reddit/Friendster-scale graphs where |E|·F·4B outgrows device
+    memory. The chunk grid is the analog of the reference's per-lambda
+    edge chunks
     (lambdaworker.cpp:376-388).
     """
     if edge_chunk and src.shape[0] > edge_chunk:
@@ -61,7 +62,7 @@ def spmm_edgewise(
             s, d, v = ch
             msgs = h[s] * v[:, None].astype(h.dtype)
             # Per-chunk sorted segment-sum (chunks of globally dst-sorted
-            # edges stay sorted) + dense accumulate: ~5x faster than the
+            # edges stay sorted) + dense accumulate, instead of the
             # scatter-add XLA emits for out.at[d].add(msgs).
             part = jax.ops.segment_sum(msgs, d, num_segments=num_out,
                                        indices_are_sorted=sorted_dst)
@@ -74,66 +75,6 @@ def spmm_edgewise(
     msgs = h[src] * edge_val[:, None].astype(h.dtype)
     return jax.ops.segment_sum(msgs, dst, num_segments=num_out,
                                indices_are_sorted=sorted_dst)
-
-
-def build_dst_blocks(src: "np.ndarray", dst: "np.ndarray",
-                     val: "np.ndarray", num_out: int,
-                     block_rows: int = 131072) -> tuple[dict, int]:
-    """Host-side: slice dst-sorted edges into static per-dst-block ranges.
-
-    XLA's segment_sum collapses ~12x once its (V, F) output exceeds VMEM
-    (measured on v5e: 63M edges/s at V=233k vs 5.3M at V=1.6M, same E).
-    Blocking the output rows keeps every per-block reduction in the fast
-    regime. Returns padded (n_blocks, eb) arrays + the slot map that takes
-    flat edge-order values (e.g. GAT attention) into block layout.
-    """
-    import numpy as np
-
-    n_blocks = max(1, -(-num_out // block_rows))
-    bounds = np.searchsorted(dst, np.arange(n_blocks + 1) * block_rows)
-    counts = np.diff(bounds)
-    eb = max(8, int(-(-int(counts.max()) // 8) * 8))
-    e = len(src)
-    src_b = np.zeros((n_blocks, eb), np.int32)
-    dstl_b = np.zeros((n_blocks, eb), np.int32)
-    val_b = np.zeros((n_blocks, eb), np.float32)
-    slot_to_edge = np.full((n_blocks, eb), e, np.int64)  # e -> padding
-    for b in range(n_blocks):
-        lo, hi = bounds[b], bounds[b + 1]
-        k = hi - lo
-        src_b[b, :k] = src[lo:hi]
-        dstl_b[b, :k] = dst[lo:hi] - b * block_rows
-        val_b[b, :k] = val[lo:hi]
-        slot_to_edge[b, :k] = np.arange(lo, hi)
-    arrays = {
-        "src": src_b, "dst_local": dstl_b, "val": val_b,
-        "slot_to_edge": slot_to_edge.astype(np.int32),
-    }
-    return arrays, block_rows
-
-
-def spmm_dst_blocked(h_table: jnp.ndarray, blk: dict, num_out: int,
-                     block_rows: int,
-                     val_flat: jnp.ndarray | None = None) -> jnp.ndarray:
-    """Blocked SpMM over build_dst_blocks arrays. val_flat overrides the
-    baked edge values (dynamic weights, e.g. GAT attention), routed into
-    block layout through the slot map. block_rows must be static."""
-    if val_flat is not None:
-        val_ext = jnp.concatenate(
-            [val_flat.astype(h_table.dtype), jnp.zeros((1,), h_table.dtype)])
-        vals = val_ext[blk["slot_to_edge"]]
-    else:
-        vals = blk["val"].astype(h_table.dtype)
-
-    def body(_, ch):
-        s, d, v = ch
-        msgs = h_table[s] * v[:, None]
-        part = jax.ops.segment_sum(msgs, d, num_segments=block_rows,
-                                   indices_are_sorted=True)
-        return None, part
-
-    _, parts = jax.lax.scan(body, None, (blk["src"], blk["dst_local"], vals))
-    return parts.reshape(-1, h_table.shape[1])[:num_out]
 
 
 def aggregate(
@@ -160,7 +101,7 @@ def aggregate(
 # ---------------------------------------------------------------------------
 # Sorted-index row/scalar gather with a segment-sum backward.
 #
-# The autodiff VJP of x[idx] is scatter-add — the slowest lowering on TPU
+# The autodiff VJP of x[idx] is a scatter-add
 # (the reason ops/degree_spmm.py exists). When idx is ASCENDING (our edges
 # are CSC/dst-sorted), the adjoint is a sorted segment_sum instead. GAT's
 # per-edge attention logits az = za[dst] hit this on |E|-sized gathers

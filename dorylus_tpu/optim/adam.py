@@ -12,7 +12,7 @@ constructor pre-increments so the first update uses t=1; we replicate both.
 
 The reference's weight-server tier (replication across servers, ghost-update
 ACK counting, versioned weight stashing for async chunks —
-weightserver.cpp:89-187, weighttensor.cpp) collapses on TPU to replicated
+weightserver.cpp:89-187, weighttensor.cpp) collapses here to replicated
 parameter pytrees + psum'd gradients inside the compiled step; the optimizer
 below is the only surviving state machine.
 """

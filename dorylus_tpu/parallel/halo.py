@@ -1,4 +1,4 @@
-"""Halo (ghost vertex) exchange as a single ICI collective.
+"""Halo (ghost vertex) exchange as a single collective.
 
 Replaces the reference's push-based scatter + ghost-receiver thread pair
 (Engine::scatterGCN gcn_ops.cpp:204-260 — batch boundary features per
@@ -6,7 +6,7 @@ destination node over ZMQ PUB; ghostReceiverGCN :262-362 — parse and write
 into the "fg"/"bg" ghost tensors) with one all_to_all per layer:
 
   1. gather: buf[p] = h[send_idx[p]]  — rows peer p needs from us
-  2. all_to_all over the 'graph' mesh axis (rides ICI, XLA-scheduled)
+  2. all_to_all over the 'graph' mesh axis (XLA-scheduled; NCCL on GPUs)
   3. the received (n_shards, max_h, F) block IS the ghost tensor; edge
      source indices address concat(local, ghosts) directly.
 
@@ -14,29 +14,23 @@ The backward pass of this function (gather -> all_to_all -> concat) is
 derived by autodiff: scatter-add of ghost gradients back to their owner —
 exactly the reference's backward scatter of "bg" gradients.
 
-Two wire formats, platform-gated (TrainConfig.halo):
+Two wire formats (TrainConfig.halo):
 
-  * padded (default on CPU): every (shard, peer) pair ships max_h rows —
-    the fixed-shape all_to_all XLA:CPU can lower, required by the
-    hermetic suite and the virtual-mesh dryrun (ragged-all-to-all is
-    UNIMPLEMENTED in the CPU ThunkEmitter, verified on jax 0.9). The
-    padding waste is quantified per-run in the weak-scaling artifacts
-    (benchmarks/results/weak_scaling_*_r4.json "halo.padding_waste").
-  * ragged (default on TPU, n > 1): lax.ragged_all_to_all ships each
-    pair's EXACT row count — the reference's exact per-destination ZMQ
-    scatter (gcn_ops.cpp:204-260) — while writing into the SAME padded
-    (n·max_h, F) ghost layout, so edge source indices are unchanged.
-    Plan arrays from build_ragged_plan; backward is the reverse ragged
-    exchange + a sorted segment_sum (no scatter). Constructed and
-    numpy-emulation-tested on CPU (tests/test_ragged_halo.py); execution
-    requires a real multi-chip TPU mesh, which this dev box does not
-    have. FIRST-USE CANARY (ragged_canary, round 5): before the big
-    program compiles on any mesh, a tiny ragged_all_to_all of the same
-    dtype/rank runs and its result is checked numerically; on ANY
-    failure (lowering, layout, wrong rows) the engine logs and falls
-    back to the padded format — a pod user never hits a surprise as a
-    hard crash of the big program (tests/test_ragged_halo.py fallback
-    tests fake the canary both ways).
+  * padded (the default, "auto"): every (shard, peer) pair ships max_h
+    rows — the fixed-shape all_to_all every backend lowers, including
+    XLA:CPU for the hermetic suite and the virtual-mesh dryrun
+    (ragged-all-to-all is UNIMPLEMENTED in the CPU ThunkEmitter).
+  * ragged (only when asked for, n > 1): lax.ragged_all_to_all ships
+    each pair's EXACT row count — the reference's exact per-destination
+    ZMQ scatter (gcn_ops.cpp:204-260) — while writing into the SAME
+    padded (n·max_h, F) ghost layout, so edge source indices are
+    unchanged. Plan arrays from build_ragged_plan; backward is the
+    reverse ragged exchange + a sorted segment_sum (no scatter).
+    Numpy-emulation-tested on CPU (tests/test_ragged_halo.py). Before the
+    big program compiles, a tiny ragged_all_to_all of the same dtype/rank
+    runs and is checked numerically (ragged_canary); when it fails, the
+    engine raises RaggedHaloUnavailable instead of training on a format
+    the user did not ask for.
 """
 
 from __future__ import annotations
@@ -48,6 +42,11 @@ import jax.numpy as jnp
 import numpy as np
 
 from dorylus_tpu.parallel.mesh import GRAPH_AXIS
+
+
+class RaggedHaloUnavailable(RuntimeError):
+    """halo="ragged" was asked for, but lax.ragged_all_to_all failed its
+    canary on this mesh."""
 
 
 def halo_exchange(h: jnp.ndarray, send_idx: jnp.ndarray,
@@ -66,8 +65,8 @@ def halo_recv(h: jnp.ndarray, send_idx: jnp.ndarray,
 
     plan: optional (order, rows) from build_recv_plan — routes the
     backward through a SORTED segment_sum instead of the gather-VJP's
-    XLA scatter-add (the slowest lowering on TPU; the degree kernel
-    exists for the same reason, ops/degree_spmm.py)."""
+    XLA scatter-add (the degree kernel avoids scatter-add for the same
+    reason, ops/degree_spmm.py)."""
     if plan is not None:
         return _halo_recv_planned(axis_name, h, send_idx, plan[0], plan[1])
     buf = h[send_idx]  # (n_shards, max_h, F)
@@ -87,8 +86,8 @@ def make_halo_fn(halo_args, overlap: bool, multi: bool):
         return None
     send_idx, order, rows, rg = halo_args
     if rg is not None:
-        # Exact wire format (TPU): lax.ragged_all_to_all ships each
-        # pair's exact row count — gcn_ops.cpp:204-260 analog.
+        # Exact wire format: lax.ragged_all_to_all ships each pair's
+        # exact row count — gcn_ops.cpp:204-260 analog.
         n_sh, mh = send_idx.shape
 
         def recv(h):
@@ -160,19 +159,16 @@ def ragged_canary(mesh, dtype=jnp.float32) -> bool:
     same dtype, every (owner, receiver) pair shipping one exact row into
     a strided output layout — the ragged_halo_recv pattern) and checks
     the received rows NUMERICALLY. Returns False on any exception or
-    wrong result, so the engine can fall back to the padded wire format
-    before the big program ever compiles (the reference's equivalent
-    path, gcn_ops.cpp:204-260, is its hottest collective — a lowering
-    or layout surprise must not be a hard crash of a pod run).
+    wrong result, so the engine can refuse the format before the big
+    program ever compiles (a lowering or layout surprise becomes a clear
+    error, not a crash deep inside the training program).
 
-    Two multi-host-pod lessons baked in (round-5 review): payloads are
-    small INTEGERS, exact in bf16/fp8 for any shard count up to 256 —
-    fractional encodings like p + q/8 silently round at >=30 shards in
-    bf16 and would false-fail a healthy reference-width mesh — and the
-    verdict leaves the device as a REPLICATED mismatch count (psum'd
-    scalar), because fetching a sharded result spans non-addressable
-    devices on a multi-controller pod and would turn every pod run into
-    a false canary failure."""
+    Payloads are small INTEGERS, exact in bf16/fp8 for any shard count up
+    to 256 — fractional encodings like p + q/8 silently round at >=30
+    shards in bf16 and would false-fail a healthy mesh — and the verdict
+    leaves the device as a REPLICATED mismatch count (psum'd scalar),
+    because fetching a sharded result spans non-addressable devices on a
+    multi-controller mesh."""
     import functools as _ft
 
     from jax.sharding import NamedSharding, PartitionSpec as P
@@ -181,11 +177,10 @@ def ragged_canary(mesh, dtype=jnp.float32) -> bool:
     n = mesh.shape[GRAPH_AXIS]
     if n > 256:
         # Payload exactness only holds to 256 shards — treat a wider mesh
-        # as a canary failure (padded fallback), not a hard crash: the
-        # documented contract is "never a hard crash of a pod run".
+        # as a canary failure.
         from dorylus_tpu.common.logging import log
         log("ragged halo canary skipped: %d shards > 256 (payload "
-            "exactness bound) — falling back to the padded wire format", n)
+            "exactness bound)", n)
         return False
     try:
         @_ft.partial(shard_map, mesh=mesh,
@@ -220,7 +215,7 @@ def ragged_canary(mesh, dtype=jnp.float32) -> bool:
         xd = jax.device_put(x.astype(dtype), sh)
         wd = jax.device_put(want.astype(dtype), sh)
         return float(tiny(xd, wd)) == 0.0
-    except Exception as e:  # noqa: BLE001 — ANY failure means fall back
+    except Exception as e:  # noqa: BLE001 — ANY failure fails the canary
         from dorylus_tpu.common.logging import log
         log("ragged halo canary failed (%s: %s)", type(e).__name__, e)
         return False
@@ -288,7 +283,7 @@ def build_ragged_plan(sharded) -> dict:
 def ragged_halo_recv(axis_name, n_shards, max_h, h, rg):
     """Ghost rows only, exact wire traffic: (n_shards*max_h, F) with the
     slots past each pair's exact count left zero (never referenced by
-    real edges). Must run inside shard_map over `axis_name` on TPU."""
+    real edges). Must run inside shard_map over `axis_name`."""
     buf = h[rg["rows"]]  # (S, F) exact rows, grouped by destination
     out = jnp.zeros((n_shards * max_h, h.shape[1]), h.dtype)
     return jax.lax.ragged_all_to_all(

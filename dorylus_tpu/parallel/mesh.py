@@ -5,7 +5,7 @@ handshake, ZMQ barrier — nodemanager.cpp:19-229): jax.distributed +
 Mesh construction is the membership layer, and any collective is a barrier.
 
 Two axes (the reference has only graph/data parallelism; the second axis
-is a TPU-native extension):
+is an extension of this rebuild):
 
   * 'graph' — vertex shards (partition + halo + grad psum), the
     reference's graph-server tier;

@@ -1,6 +1,6 @@
 // graphcore — native graph preprocessing for dorylus_tpu.
 //
-// The TPU-native analog of the reference's C++ graph tier:
+// The host-side analog of the reference's C++ graph tier:
 //   - DataLoader::preprocess / setEdgeNormalizations
 //     (src/graph-server/graph/dataloader.cpp): edge classification,
 //     degrees, GCN symmetric norm factors

@@ -3,9 +3,9 @@
 The reference's widest deployment is 32 graph servers
 (benchmarks/run-friendster-gcn:6). The suite's virtual mesh is 8-wide
 (conftest), so the 32-block halo all_to_all permutation and the 32-way
-shared-DP hyb plans would otherwise only ever run in committed artifacts
-(benchmarks/results/sharded_32way_r4.json). This launches the validation
-script in a subprocess with its own 32-device CPU mesh; it asserts
+shared-DP hyb plans would otherwise never run in the suite. This launches
+the validation script in a subprocess with its own 32-device CPU mesh; it
+asserts
 single-vs-32-way loss parity internally (measured delta 2.4e-07)."""
 
 import os

@@ -1,12 +1,10 @@
-"""Regime-aware aggregation ordering (models/gcn.py AGG_CLIFF_BYTES).
+"""Aggregation ordering: both layer orderings compute the same operator.
 
-Past the bf16 gather-regime cliff the models aggregate at the (<=128
-lane) input width instead of the narrow transformed width — measured
-1.26x on the V=1.6M epoch (tools/probe_reuse_width.py). These tests
-force the rule on small graphs (cliff patched to 0) and pin that both
-orderings compute the same operator: GCN via (S·H)·W == S·(H·W), GAT via
-att ⊙ (S_unit·H)·W == S_att·(H·W) (dst-only attention factors through
-the transform).
+GCN aggregates at the narrower width (transform-first when a layer
+shrinks, optimize_order) or at the input width (aggregate-first); GAT's
+dst-functional slot path (apply_dst) and its edgewise path must agree.
+An H100 measurement (tools/derive_constants.py) found the narrow table
+cheaper at every table size, so no size-dependent ordering rule remains.
 """
 
 import jax
@@ -14,7 +12,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import dorylus_tpu.models.gcn as gcn_mod
 from dorylus_tpu.common.config import LayerConfig
 from dorylus_tpu.engine.batch import build_batch
 from dorylus_tpu.graph.graph import synthetic_graph
@@ -49,7 +46,7 @@ def _tree_close(a, b, rtol):
 
 
 @pytest.mark.slow
-def test_gcn_agg_first_matches_transform_first(graph, monkeypatch):
+def test_gcn_agg_first_matches_transform_first(graph):
     layers = LayerConfig([16, 32, 8])
     op = _op(graph, "gcn")
     batch = build_batch(graph)._replace(aux={"spmm": op.arrays})
@@ -58,8 +55,8 @@ def test_gcn_agg_first_matches_transform_first(graph, monkeypatch):
 
     loss_tf, g_tf = _loss_and_grads(model, params, batch)
     assert model.spmm_op.gather_itemsize == 2
-    monkeypatch.setattr(gcn_mod, "AGG_CLIFF_BYTES", 0)
-    loss_af, g_af = _loss_and_grads(model, params, batch)
+    loss_af, g_af = _loss_and_grads(
+        GCN(layers, spmm_op=op, optimize_order=False), params, batch)
 
     # Same operator; only the bf16 rounding point moves (gather at width
     # 16 of h vs width 8 of h·W).
@@ -68,9 +65,9 @@ def test_gcn_agg_first_matches_transform_first(graph, monkeypatch):
 
 
 def test_gcn_wide_input_keeps_transform_first(graph, monkeypatch):
-    """A >128-wide input layer (l0: 160 -> 8) must still transform first
-    (fewer vregs per gathered row) even past the cliff. Asserts the
-    ORDERING decision directly by spying on the table widths apply_static
+    """A shrinking layer (l0: 160 -> 8) transforms first and aggregates
+    the narrow width, whatever the table size. Asserts the ORDERING
+    decision directly by spying on the table widths apply_static
     receives — a loss comparison alone is ordering-invariant (both
     orderings compute the same operator)."""
     g = synthetic_graph(300, 6, 160, 8, seed=3)
@@ -90,27 +87,27 @@ def test_gcn_wide_input_keeps_transform_first(graph, monkeypatch):
         return orig_apply_static(self, arrays, h)
 
     monkeypatch.setattr(HybSpMM, "apply_static", spy)
-    monkeypatch.setattr(gcn_mod, "AGG_CLIFF_BYTES", 0)
     model.loss(params, batch)
-    # l0 (160 -> 8): past the cliff but input > 128 wide — must aggregate
-    # the TRANSFORMED width 8, not the raw 160. l1 (8 -> 8): not
-    # shrinking, aggregate-first at width 8 as always.
+    # l0 (160 -> 8): aggregates the TRANSFORMED width 8, not the raw 160.
+    # l1 (8 -> 8): not shrinking, aggregate-first at width 8.
     assert widths == [8, 8]
 
 
-def test_gat_agg_first_matches_dst_apply(graph, monkeypatch):
+def test_gat_agg_first_matches_dst_apply(graph):
+    """GAT's dst-functional hyb path (apply_dst at width fout) against
+    the edgewise path (per-edge attention values), f32 tables."""
     layers = LayerConfig([16, 32, 8])
-    op = _op(graph, "gat")
+    op = _op(graph, "gat", dtype=None)
     batch = build_batch(graph, for_gat=True)._replace(aux={"spmm": op.arrays})
-    model = GAT(layers, spmm_op=op)
-    params = model.init_params(exact_reference=False)
+    params = GAT(layers).init_params(exact_reference=False)
 
-    loss_tf, g_tf = _loss_and_grads(model, params, batch)
-    monkeypatch.setattr(gcn_mod, "AGG_CLIFF_BYTES", 0)
-    loss_af, g_af = _loss_and_grads(model, params, batch)
+    loss_d, g_d = _loss_and_grads(GAT(layers, spmm_op=op), params, batch)
+    loss_e, g_e = _loss_and_grads(GAT(layers), params, batch)
 
-    np.testing.assert_allclose(float(loss_af), float(loss_tf), rtol=2e-2)
-    _tree_close(g_af, g_tf, rtol=8e-2)
+    np.testing.assert_allclose(float(loss_d), float(loss_e), rtol=1e-4)
+    for k in g_e:
+        np.testing.assert_allclose(np.asarray(g_d[k]), np.asarray(g_e[k]),
+                                   rtol=1e-3, atol=1e-3, err_msg=k)
 
 
 def test_apply_unit_matches_dst_ones(graph):
@@ -141,10 +138,16 @@ def test_apply_unit_matches_dst_ones(graph):
 
 
 def test_reddit_shape_below_cliff_unchanged():
-    """The Reddit config (V=233k, widths 41/50) sits below the 64 MB
-    cliff — the rule must not engage there (bench continuity)."""
-    assert 233_000 * 41 * 2 < gcn_mod.AGG_CLIFF_BYTES
-    assert 233_000 * 128 * 2 < gcn_mod.AGG_CLIFF_BYTES
-    # ... and the V=1.6M / width-32 regime that motivated the rule is past
-    # the cliff.
-    assert 1_600_000 * 32 * 2 >= gcn_mod.AGG_CLIFF_BYTES
+    """The op width the engines size plans for follows the layer widths
+    alone — no table-size rule widens it (Reddit 602-128-41: 128 for both
+    models; a shrinking 128 -> 32 layer aggregates 32)."""
+    from dorylus_tpu.common.config import TrainConfig
+    from dorylus_tpu.engine.engine import _max_agg_width
+
+    reddit = LayerConfig([602, 128, 41])
+    assert _max_agg_width(reddit, TrainConfig(model="gcn")) == 128
+    assert _max_agg_width(reddit, TrainConfig(model="gat")) == 128
+    assert _max_agg_width(LayerConfig([128, 32, 8]),
+                          TrainConfig(model="gcn")) == 32
+    assert _max_agg_width(LayerConfig([128, 32, 8]),
+                          TrainConfig(model="gcn", optimize_order=False)) == 128

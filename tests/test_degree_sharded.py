@@ -90,16 +90,13 @@ def test_sharded_degree_bf16_close_to_f32():
 
 
 def test_sharded_degree_blocked_output_matches_unblocked(monkeypatch):
-    """Round-5 review: the sharded wrapper hardcoded out_block_rows=0,
-    silently re-paying the large-V segment_sum collapse the blocking
-    exists to prevent (the bwd plan's output is the vp + n*max_h TABLE,
-    which crosses the cliff before vp does). Force the cliff low and
-    check the blocked plans (multi-block, padded per shard) match the
-    unblocked ones exactly — forward and gradient."""
+    """An explicit out_block_rows blocks BOTH directions' final reduce
+    (the bwd plan's output is the vp + n*max_h table); the default is
+    unblocked. The blocked plans (multi-block, padded per shard) must
+    match the unblocked ones exactly — forward and gradient."""
     import jax
     import jax.numpy as jnp
 
-    import dorylus_tpu.ops.degree_spmm as dsp
     from dorylus_tpu.graph.graph import clustered_synthetic_graph
     from dorylus_tpu.graph.partition import partition_graph
     from dorylus_tpu.ops.degree_sharded import ShardedDegreeSpMM
@@ -109,7 +106,6 @@ def test_sharded_degree_blocked_output_matches_unblocked(monkeypatch):
     sg = partition_graph(g, 4, method="hash")
     plain = ShardedDegreeSpMM(sg, block=8, static_vals=True)
     assert plain.static[4] == 0 and plain.static[5] == 0
-    monkeypatch.setattr(dsp, "_OUT_BLOCK_AUTO_V", 64)
     blocked = ShardedDegreeSpMM(sg, block=8, static_vals=True,
                                 out_block_rows=64)
     assert blocked.static[4] == 64 and blocked.static[5] == 64

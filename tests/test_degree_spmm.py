@@ -168,7 +168,7 @@ def test_blocked_final_reduce_matches_plain():
 
 def test_auto_row_chunk_is_oom_guard_only():
     """row_chunk auto-enables only when the (slots, F) message tensor would
-    approach HBM; small graphs must stay unchunked (it costs ~2.4x)."""
+    be very large; small graphs must stay unchunked (chunking is slower)."""
     src, dst, val, h = _random_graph(57, 41, 400, 9, seed=17)
     small = DegreeSpMM(src, dst, 57, 41, block=8, feature_dim=128)
     assert small.static[2] == 0
@@ -183,8 +183,7 @@ def test_auto_row_chunk_is_oom_guard_only():
 
 def test_bf16_gather_mode_close_to_f32():
     """agg_dtype=bfloat16: messages gathered/multiplied in bf16 with f32
-    accumulation (the TPU gather is byte-rate-bound, so this halves the
-    aggregation wall — tools/probe_roofline.py). Output must stay within
+    accumulation (half the gathered bytes). Output must stay within
     bf16 mantissa error of the f32 path, gradients included."""
     src, dst, val, h = _random_graph(200, 150, 2000, 32, seed=11)
     f32 = DegreeSpMM(src, dst, 200, 150, block=8)

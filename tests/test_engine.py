@@ -61,14 +61,11 @@ def test_group_len_boundaries():
     # matching ConvergeMonitor) — groups engage to the cap, not 1/epoch.
     cfgt0 = TrainConfig(eval_every=1, target_accuracy=0.0)
     assert group_len(0, 100, cfgt0) == AUTO_GROUP_CAP
-    # Giant graphs cap the auto group by edge budget (remote-worker
-    # watchdog guard): k * edges <= AUTO_GROUP_EDGE_BUDGET.
-    assert group_len(0, 100, cfg, num_edges=11_600_000) == 10
-    assert group_len(0, 100, cfg, num_edges=37_000_000) == 3
-    assert group_len(0, 100, cfg, num_edges=500_000_000) == 1
-    # Explicit epochs_per_call overrides the budget (user knows best).
-    assert group_len(0, 100, TrainConfig(epochs_per_call=25),
-                     num_edges=500_000_000) == 25
+    # The auto cap depends on nothing but AUTO_GROUP_CAP: no graph-size
+    # budget shortens groups. An explicit epochs_per_call replaces it.
+    assert group_len(0, 100, TrainConfig(epochs_per_call=40)) == 40
+    assert group_len(0, 100, TrainConfig(epochs_per_call=40,
+                                         eval_every=0)) == 40
     # explicit per-epoch mode
     cfg1 = TrainConfig(eval_every=0, epochs_per_call=1)
     assert group_len(3, 20, cfg1) == 1

@@ -1,7 +1,7 @@
 """Feature/tensor parallelism (mesh 'feat' axis, models/gcn.py
 _forward_tp): slicing the aggregation into F/m column blocks and
 psum-assembling the layer matmuls must reproduce the single-device
-trajectory exactly — a TPU-native extension with no reference analog
+trajectory exactly — an extension of this rebuild with no reference analog
 (the reference has only graph parallelism)."""
 
 import jax
@@ -126,7 +126,7 @@ def test_tp_with_reuse_matches_plain():
     """TP composes with the pair-reuse rewrite (the budget is computed
     against the SLICED table width under TP); trajectory must match the
     plain single-device run on an overlap-heavy graph."""
-    from tests.test_reuse import _overlap_graph_obj
+    from test_reuse import _overlap_graph_obj
 
     g = _overlap_graph_obj()
     layers = LayerConfig([24, 12, 5])

@@ -76,7 +76,24 @@ def test_sharded_hyb_overlap_equals_combined():
 
 
 def test_sharded_auto_resolves_to_hyb():
+    """kernel="auto" is hyb for every model, table dtype and graph size;
+    an explicit kernel is kept. Engine and ShardedEngine resolve alike."""
     from dorylus_tpu.common.config import resolve_kernel
-    assert resolve_kernel("auto", 20_000_000) == "hyb"
-    assert resolve_kernel("hyb", 20_000_000) == "hyb"
-    assert resolve_kernel("auto", 1_000) == "xla"
+
+    assert resolve_kernel("auto") == "hyb"
+    for k in ("hyb", "degree", "xla"):
+        assert resolve_kernel(k) == k
+    g = synthetic_graph(200, 5, 12, 3, seed=4)
+    for model in ("gcn", "gat"):
+        for agg in ("float32", "bfloat16"):
+            cfg = TrainConfig(model=model, epochs=1, eval_every=0,
+                              agg_dtype=agg)
+            eng = ShardedEngine(g, LayerConfig([12, 6, 3]), cfg,
+                                mesh=make_mesh(2))
+            assert eng.cfg.kernel == "hyb"
+            assert Engine(g, LayerConfig([12, 6, 3]),
+                          cfg).kernel_selected == "hyb"
+    eng = ShardedEngine(g, LayerConfig([12, 6, 3]),
+                        TrainConfig(epochs=1, eval_every=0, kernel="xla"),
+                        mesh=make_mesh(2))
+    assert eng.cfg.kernel == "xla"

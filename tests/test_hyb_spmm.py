@@ -308,7 +308,7 @@ def test_degree_sorted_engine_matches_unsorted():
 
 def test_dynamic_false_strips_maps_and_matches():
     """dynamic=False drops the slot->edge maps (a capacity lever — they
-    are E-sized and lane-padded) without changing static/dst/unit math;
+    are E-sized) without changing static/dst/unit math;
     the dynamic path then raises instead of mis-executing."""
     import jax.numpy as jnp
     import pytest
@@ -337,27 +337,48 @@ def test_dynamic_false_strips_maps_and_matches():
         slim.apply(slim.arrays, h, jnp.ones(g.num_edges))
 
 
-def test_padded_nbytes_and_budget_cpu_noop():
-    """padded_nbytes models TPU tiling (minor dim -> 128 lanes, second
-    minor -> 8 sublanes; 1-D arrays unpadded); fit_msgs_budget is a
-    no-op off-TPU (the hermetic suite must never inherit a lowered
-    guard)."""
+def test_padded_nbytes_and_budget_cpu_noop(monkeypatch):
+    """tree_nbytes counts logical bytes (the GPU pads no lanes);
+    fit_msgs_budget keeps the fixed guard on the CPU, sizes the guard from
+    an accelerator's memory_stats()["bytes_limit"], and refuses to guess
+    when an accelerator reports none."""
     from dorylus_tpu.ops import hyb_spmm
-    from dorylus_tpu.ops.hyb_spmm import fit_msgs_budget, padded_nbytes
+    from dorylus_tpu.ops.hyb_spmm import fit_msgs_budget, tree_nbytes
 
     tree = {
-        "grid": np.zeros((1000, 32), np.int32),   # 1000*8? -> 1000 rows pad8
+        "grid": np.zeros((1000, 32), np.int32),
         "flat": np.zeros(1000, np.float32),
-        "wide": np.zeros((16, 256), np.float32),
+        "wide": {"x": np.zeros((3, 5, 7), np.float16)},
+        "scalar": np.float32(1.0),
     }
-    got = padded_nbytes(tree)
-    want = (1000 // 8 * 8 * 128 * 4       # grid: 1000 rows (already %8), 32->128
-            + 1000 * 4                     # flat: no padding
-            + 16 * 256 * 4)                # wide: 16%8==0, 256%128==0
-    assert got == want, (got, want)
+    assert tree_nbytes(tree) == 1000 * 32 * 4 + 1000 * 4 + 3 * 5 * 7 * 2
     before = hyb_spmm._MSGS_CHUNK_BYTES
-    assert fit_msgs_budget(50 << 30) == before  # CPU: the default
+    assert fit_msgs_budget(50 << 30) == before  # CPU: the fixed guard
     assert hyb_spmm._MSGS_CHUNK_BYTES == before  # pure: never mutated
+
+    class Card:
+        platform, device_kind = "gpu", "NVIDIA H100 80GB HBM3"
+
+        def __init__(self, stats):
+            self.stats = stats
+
+        def memory_stats(self):
+            return self.stats
+
+    limit = 60 << 30
+    monkeypatch.setattr(hyb_spmm.jax, "local_devices",
+                        lambda: [Card({"bytes_limit": limit})])
+    logged = []
+    got = fit_msgs_budget(10 << 30, 3 << 30,
+                          log_fn=lambda *a: logged.append(a))
+    assert got == limit - (10 << 30) - (3 << 30) - (2 << 30)
+    assert logged
+    assert fit_msgs_budget(limit, 0) == 1 << 30  # floor: 1 GB
+    for stats in (None, {}):
+        monkeypatch.setattr(hyb_spmm.jax, "local_devices",
+                            lambda stats=stats: [Card(stats)])
+        with pytest.raises(RuntimeError, match="bytes_limit"):
+            fit_msgs_budget(0)
 
 
 def test_msgs_budget_is_engine_scoped():

@@ -90,7 +90,7 @@ def test_mine_pairs_native_exact_and_matches_numpy(lib_ok):
     if not native.has_mine_pairs():
         pytest.skip("libgraphcore < v3")
     from dorylus_tpu.graph.reuse import _mine_one
-    from tests.test_reuse import clustered_graph, dense_unit
+    from test_reuse import clustered_graph, dense_unit
 
     src, dst = clustered_graph(num_vertices=500, communities=15, deg=10,
                                seed=7)
@@ -120,7 +120,7 @@ def test_mine_pairs_native_exact_and_matches_numpy(lib_ok):
 
 def test_mine_pairs_native_speed_smoke(lib_ok):
     """The native miner must stay fast enough for the hermetic suite on a
-    mid-sized graph (the 24M-edge target is benchmarked on TPU tooling)."""
+    mid-sized graph."""
     if not native.has_mine_pairs():
         pytest.skip("libgraphcore < v3")
     import time

@@ -7,9 +7,9 @@ plan arrays against the padded layout's ground truth, (b) the FORWARD
 result by emulating the documented ragged_all_to_all semantics in numpy
 across all shards and comparing against the padded halo table, and
 (c) the BACKWARD by emulating the reverse exchange + segment_sum and
-comparing against the padded path's autodiff gradient. The platform gate
-(TrainConfig.halo="auto" -> padded on CPU) is asserted at the engine
-surface. Reference: exact per-destination scatter, gcn_ops.cpp:204-260.
+comparing against the padded path's autodiff gradient. The engine rules
+(TrainConfig.halo="auto" -> padded; an explicit "ragged" whose canary
+fails raises) are asserted at the engine surface. Reference: exact per-destination scatter, gcn_ops.cpp:204-260.
 """
 
 import jax
@@ -139,11 +139,12 @@ def test_backward_emulation_matches_padded_autodiff(setup):
 
 
 def test_engine_gate_cpu_auto_is_padded():
-    """halo='auto' resolves to the padded path on a CPU mesh (ragged
-    cannot lower there); an explicitly requested 'ragged' hits the
-    first-use canary, which FAILS on CPU (no lowering) and falls back to
-    padded instead of crashing the big program's compile."""
+    """halo='auto' is the padded format and trains like halo='padded'; an
+    explicitly requested 'ragged' hits the first-use canary, which FAILS
+    on CPU (no lowering), and the engine raises instead of training on
+    the padded format."""
     from dorylus_tpu.common.config import LayerConfig, TrainConfig
+    from dorylus_tpu.parallel.halo import RaggedHaloUnavailable
     from dorylus_tpu.parallel.mesh import make_mesh
     from dorylus_tpu.parallel.train_step import ShardedEngine
 
@@ -152,19 +153,21 @@ def test_engine_gate_cpu_auto_is_padded():
     eng = ShardedEngine(g, layers, TrainConfig(epochs=1, eval_every=0),
                         mesh=make_mesh(4))
     assert "ragged" not in eng.arrs
-    eng2 = ShardedEngine(g, layers,
-                         TrainConfig(epochs=1, eval_every=0, halo="ragged"),
-                         mesh=make_mesh(4))
-    assert "ragged" not in eng2.arrs  # canary failed -> padded fallback
-    # The fallback engine must actually TRAIN (the padded plan arrays
-    # always ship) — the whole point of the canary.
-    rep = eng2.run(2)
-    assert len(rep.epochs) == 2
+    padded = ShardedEngine(g, layers, TrainConfig(epochs=1, eval_every=0,
+                                                  halo="padded"),
+                           mesh=make_mesh(4))
+    np.testing.assert_allclose([e.loss for e in eng.run(2).epochs],
+                               [e.loss for e in padded.run(2).epochs],
+                               rtol=1e-6)
+    with pytest.raises(RaggedHaloUnavailable):
+        ShardedEngine(g, layers,
+                      TrainConfig(epochs=1, eval_every=0, halo="ragged"),
+                      mesh=make_mesh(4))
 
 
 def test_canary_fake_pass_builds_ragged(monkeypatch):
     """Faking a canary PASS exercises the build side of the gate: the
-    exact-wire plan arrays ship with the batch (what a healthy pod mesh
+    exact-wire plan arrays ship with the batch (what a healthy mesh
     gets)."""
     from dorylus_tpu.common.config import LayerConfig, TrainConfig
     from dorylus_tpu.parallel import train_step
@@ -183,8 +186,8 @@ def test_canary_fake_pass_builds_ragged(monkeypatch):
 
 
 def test_canary_fake_failure_falls_back(monkeypatch):
-    """Faking a canary FAILURE (the judge-directed unit test) triggers
-    the padded fallback even where the canary would have passed."""
+    """Faking a canary FAILURE with an explicit halo='ragged' raises
+    RaggedHaloUnavailable: no silent fall-back to the padded format."""
     from dorylus_tpu.common.config import LayerConfig, TrainConfig
     from dorylus_tpu.parallel import train_step
     from dorylus_tpu.parallel.mesh import make_mesh
@@ -193,22 +196,23 @@ def test_canary_fake_failure_falls_back(monkeypatch):
     monkeypatch.setattr(halo_mod, "ragged_canary",
                         lambda mesh, dtype=None: False)
     g = synthetic_graph(300, 5, 16, 5, seed=2)
-    eng = train_step.ShardedEngine(
-        g, LayerConfig([16, 8, 5]),
-        TrainConfig(epochs=1, eval_every=0, halo="ragged"),
-        mesh=make_mesh(4))
-    assert "ragged" not in eng.arrs
-    rep = eng.run(2)
-    assert len(rep.epochs) == 2
+    for model in ("gcn", "gat"):
+        with pytest.raises(halo_mod.RaggedHaloUnavailable,
+                           match="halo='padded'"):
+            train_step.ShardedEngine(
+                g, LayerConfig([16, 8, 5]),
+                TrainConfig(model=model, epochs=1, eval_every=0,
+                            halo="ragged"),
+                mesh=make_mesh(4))
 
 
 def test_canary_expectation_matches_ragged_semantics():
     """The canary's numeric expectation must agree with the documented
     ragged_all_to_all semantics (emulated in numpy) — a wrong expectation
-    would fail healthy pods into the padded fallback. Payloads must also
-    survive a bf16 round-trip EXACTLY at the reference's 32-shard width
-    (the first canary revision used p + q/8, which rounds at >=30 shards
-    in bf16 and would have false-failed a healthy pod)."""
+    would fail healthy meshes. Payloads must also survive a bf16
+    round-trip EXACTLY at the reference's 32-shard width (the first canary
+    revision used p + q/8, which rounds at >=30 shards in bf16 and would
+    have false-failed a healthy mesh)."""
     import jax.numpy as jnp
     import numpy as np
 

@@ -166,29 +166,19 @@ def test_max_pairs_budget_respected_and_exact():
                                rtol=1e-12, atol=1e-12)
 
 
-def test_engine_auto_budget_below_cliff(monkeypatch):
-    """Below the gather cliff the engine caps pairs so the table cannot
-    cross it (reuse_max_pairs=-1 auto); an explicit budget is honored."""
-    import dorylus_tpu.models.gcn as gcn_mod
+def test_engine_auto_budget_below_cliff():
+    """The pair budget: the default (reuse_max_pairs=0) mines without a
+    cap; an explicit budget is honored and the engine trains."""
     from dorylus_tpu.common.config import LayerConfig, TrainConfig
     from dorylus_tpu.engine.engine import Engine
     from dorylus_tpu.ops.reuse_spmm import ReuseSpMM
 
     g = _overlap_graph_obj()
     layers = LayerConfig([24, 12, 5])
-    # Pretend the cliff sits just above this graph's base table: width
-    # estimate = max(min(24,12), min(12,5)) regime-adjusted; force the
-    # f32 path's width*4 itemsize math by setting a cliff the 800-vertex
-    # base table is under but close to.
-    width = 12  # _max_agg_width([24,12,5], gcn, f32) = max(12, 5) = 12
-    base = 800 * width * 4
-    monkeypatch.setattr(gcn_mod, "AGG_CLIFF_BYTES", base + 200 * width * 4)
     eng = Engine(g, layers, TrainConfig(reuse="pairs", kernel="hyb",
-                                        epochs=1, eval_every=0,
-                                        reuse_max_pairs=-1))
-    # Auto budget = 200 rows of headroom -> under the 1024 floor -> off.
-    assert not isinstance(eng.model.spmm_op, ReuseSpMM)
-    # Explicit budget overrides the floor and is respected.
+                                        epochs=1, eval_every=0))
+    assert isinstance(eng.model.spmm_op, ReuseSpMM)
+    assert eng.model.spmm_op.plan_fwd.num_pairs > 50
     eng2 = Engine(g, layers, TrainConfig(reuse="pairs", kernel="hyb",
                                          epochs=1, eval_every=0,
                                          reuse_max_pairs=50))
@@ -239,36 +229,25 @@ def test_numpy_miner_zero_pairs_returns_sorted(monkeypatch):
         np.testing.assert_array_equal(a, b)
 
 
-def test_auto_budget_per_pass_and_zero_disable(monkeypatch):
-    """The auto budget splits the cliff headroom across reuse_passes
-    (mine_reuse caps PER PASS), and a computed headroom of 0 disables
-    reuse instead of meaning 'unlimited' downstream."""
-    import dorylus_tpu.models.gcn as gcn_mod
-    from dorylus_tpu.common.config import TrainConfig
-    from dorylus_tpu.engine.engine import resolve_reuse_budget
-
-    base, width = 1000, 16
-    item = 4  # f32
-    monkeypatch.setattr(gcn_mod, "AGG_CLIFF_BYTES",
-                        (base + 4096) * width * item)
-    cap1, on1 = resolve_reuse_budget(
-        TrainConfig(reuse="pairs", reuse_passes=1), base, width)
-    cap2, on2 = resolve_reuse_budget(
-        TrainConfig(reuse="pairs", reuse_passes=2), base, width)
-    assert on1 and cap1 == 4096
-    assert on2 and cap2 == 2048  # headroom / passes
-    # Headroom rounds to exactly 0 rows -> reuse OFF, never unlimited.
-    monkeypatch.setattr(gcn_mod, "AGG_CLIFF_BYTES",
-                        base * width * item + width * item - 1)
-    cap0, on0 = resolve_reuse_budget(
-        TrainConfig(reuse="pairs", reuse_passes=1), base, width)
-    assert cap0 == 0 and not on0
+def test_auto_budget_per_pass_and_zero_disable():
+    """max_pairs caps EACH mining pass (mine_reuse), and 0 means no cap."""
+    src, dst = clustered_graph()
+    unlimited = mine_reuse(src, dst, 600, min_uses=3, passes=2, max_pairs=0)
+    capped = mine_reuse(src, dst, 600, min_uses=3, passes=2, max_pairs=40)
+    per_pass = [len(lvl) for lvl in capped.levels]
+    assert per_pass and all(0 < n <= 40 for n in per_pass)
+    assert capped.num_pairs == sum(per_pass)
+    assert unlimited.num_pairs > capped.num_pairs
+    h = np.random.default_rng(2).normal(size=(600, 3))
+    np.testing.assert_allclose(apply_rewritten(capped, h),
+                               dense_unit(src, dst, 600) @ h,
+                               rtol=1e-12, atol=1e-12)
 
 
 def test_reuse_auto_engages_and_falls_back():
-    """reuse='auto' (the default) keeps the exact rewrite on overlap-heavy
-    graphs and falls back to plain hyb when mining is unprofitable
-    (uniform-random) — trajectories identical either way (exactness)."""
+    """reuse='pairs' keeps the exact rewrite on an overlap-heavy graph and
+    on a uniform-random one (which mines ~nothing): either way the
+    trajectory equals plain hyb's (exactness)."""
     from dorylus_tpu.common.config import LayerConfig, TrainConfig
     from dorylus_tpu.engine.engine import Engine
     from dorylus_tpu.graph.graph import synthetic_graph
@@ -276,75 +255,58 @@ def test_reuse_auto_engages_and_falls_back():
     from dorylus_tpu.ops.reuse_spmm import ReuseSpMM
 
     layers = LayerConfig([24, 12, 5])
-    # epochs=200 declared horizon clears the round-5 payoff gate
-    # (mining must predict repayment before it runs); only 4 epochs
-    # actually execute via run(4).
-    kw = dict(epochs=200, eval_every=0, kernel="hyb")
-    g = _overlap_graph_obj()
-    eng = Engine(g, layers, TrainConfig(reuse="auto", **kw))
-    assert isinstance(eng.model.spmm_op, ReuseSpMM)
-    r_auto = eng.run(4)
-    r_off = Engine(g, layers, TrainConfig(reuse="off", **kw)).run(4)
-    np.testing.assert_allclose(
-        [e.loss for e in r_auto.epochs], [e.loss for e in r_off.epochs],
-        rtol=2e-3, atol=2e-3)
-
+    kw = dict(epochs=4, eval_every=0, kernel="hyb")
     rnd = synthetic_graph(400, 6, 24, 5, seed=11)
-    eng2 = Engine(rnd, layers, TrainConfig(reuse="auto", **kw))
-    assert isinstance(eng2.model.spmm_op, HybSpMM)  # unprofitable -> plain
+    for g in (_overlap_graph_obj(), rnd):
+        eng = Engine(g, layers, TrainConfig(reuse="pairs", **kw))
+        assert isinstance(eng.model.spmm_op, ReuseSpMM)
+        r_pairs = eng.run()
+        eng_off = Engine(g, layers, TrainConfig(reuse="off", **kw))
+        assert isinstance(eng_off.model.spmm_op, HybSpMM)
+        r_off = eng_off.run()
+        np.testing.assert_allclose(
+            [e.loss for e in r_pairs.epochs], [e.loss for e in r_off.epochs],
+            rtol=2e-3, atol=2e-3)
+    assert eng.model.spmm_op.plan_fwd.stats["row_reduction"] < 0.10
 
 
 def test_reuse_auto_payoff_gate_both_directions(monkeypatch):
-    """The round-5 pre-mine payoff gate (engine.reuse_payoff): a short
-    horizon (or GAT's low realized efficiency) must skip mining
-    ENTIRELY — asserted by making mine_reuse explode — while a long
-    horizon on the same graph mines and engages."""
+    """Reuse is opt-in: the default config never mines — asserted by
+    making mine_reuse explode — for GCN and GAT, on one device and
+    sharded; reuse='pairs' mines for both models."""
     from dorylus_tpu.common.config import LayerConfig, TrainConfig
-    from dorylus_tpu.engine import engine as eng_mod
-    from dorylus_tpu.engine.engine import Engine, reuse_payoff
+    from dorylus_tpu.engine.engine import Engine
     from dorylus_tpu.ops.hyb_spmm import HybSpMM
     from dorylus_tpu.ops.reuse_spmm import ReuseSpMM
+    from dorylus_tpu.parallel import ShardedEngine, make_mesh
 
     g = _overlap_graph_obj()
     layers = LayerConfig([24, 12, 5])
+    assert TrainConfig().reuse == "off"
 
-    # Direction 1: short horizon -> mining never runs (patch the name
-    # ReuseSpMM actually calls).
+    import dorylus_tpu.ops.reuse_sharded as rsh_mod
     import dorylus_tpu.ops.reuse_spmm as rs_mod
 
     def boom(*a, **k):
-        raise AssertionError("payoff gate must skip mining")
+        raise AssertionError("the default config must not mine")
 
     monkeypatch.setattr(rs_mod, "mine_reuse", boom)
-    eng = Engine(g, layers, TrainConfig(reuse="auto", kernel="hyb",
-                                        epochs=2, eval_every=0))
-    assert isinstance(eng.model.spmm_op, HybSpMM)
-    # GAT needs a ~8x longer horizon than GCN for the same graph
-    # (REUSE_MODEL_EFF): an horizon that passes for GCN skips for GAT.
-    worth_gcn, *_ = reuse_payoff(
-        TrainConfig(model="gcn", epochs=150), g.num_vertices, g.num_edges)
-    worth_gat, *_ = reuse_payoff(
-        TrainConfig(model="gat", epochs=150), g.num_vertices, g.num_edges)
-    assert worth_gcn and not worth_gat
-    eng_gat = Engine(g, layers, TrainConfig(reuse="auto", kernel="hyb",
-                                            model="gat",
-                                            learning_rate=0.005,
-                                            epochs=150, eval_every=0))
-    assert isinstance(eng_gat.model.spmm_op, HybSpMM)
+    monkeypatch.setattr(rsh_mod, "mine_reuse", boom)
+    for model in ("gcn", "gat"):
+        cfg = TrainConfig(model=model, kernel="hyb", epochs=10_000,
+                          eval_every=0)
+        assert isinstance(Engine(g, layers, cfg).model.spmm_op, HybSpMM)
+        eng = ShardedEngine(g, layers, cfg, mesh=make_mesh(2))
+        assert not isinstance(eng.model.spmm_op,
+                              rsh_mod.ShardedReuseSpMM)
     monkeypatch.undo()
 
-    # Direction 2: long horizon -> mines and keeps the rewrite.
-    eng2 = Engine(g, layers, TrainConfig(reuse="auto", kernel="hyb",
-                                         epochs=100000, eval_every=0))
-    assert isinstance(eng2.model.spmm_op, ReuseSpMM)
-
-    # Arithmetic sanity: the gate's threshold is where ceiling == mine.
-    worth, ceiling, mine = reuse_payoff(
-        TrainConfig(model="gcn", epochs=1), 10**6, 10**6)
-    assert (ceiling >= mine) == worth
-    assert ceiling == eng_mod.REUSE_CUT_CAP * 10**6 \
-        * eng_mod.REUSE_SAVE_S_PER_ROW
-    assert mine == 10**6 * eng_mod.REUSE_MINE_S_PER_EDGE
+    for model in ("gcn", "gat"):
+        eng = Engine(g, layers, TrainConfig(model=model, kernel="hyb",
+                                            reuse="pairs", epochs=1,
+                                            eval_every=0))
+        assert isinstance(eng.model.spmm_op, ReuseSpMM)
+        assert eng.model.spmm_op.plan_fwd.num_pairs > 0
 
 
 def test_reuse_grad_bf16_input():

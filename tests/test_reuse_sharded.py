@@ -19,7 +19,7 @@ from dorylus_tpu.graph.graph import Graph
 from dorylus_tpu.graph.partition import partition_graph
 from dorylus_tpu.parallel.mesh import make_mesh
 from dorylus_tpu.parallel.train_step import ShardedEngine
-from tests.test_reuse import clustered_graph
+from test_reuse import clustered_graph
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 4, reason="needs >=4 devices (virtual CPU mesh)")

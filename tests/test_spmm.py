@@ -52,29 +52,29 @@ def test_transform_first_ordering_equivalent():
     np.testing.assert_allclose(np.asarray(l1), np.asarray(l2), rtol=1e-4, atol=1e-5)
 
 
-def test_dst_blocked_matches_unblocked():
-    from dorylus_tpu.ops.spmm import build_dst_blocks, spmm_dst_blocked
-    import jax.numpy as jnp
-
+def test_edgewise_dynamic_values_match_dense():
+    """Per-edge runtime values (the GAT path on the xla kernel), sorted
+    and chunked, against a dense float64 product — value and h-gradient."""
     g = synthetic_graph(700, 9, 24, 4, seed=8)
+    val = np.random.default_rng(1).normal(size=g.num_edges).astype(np.float32)
+    a = np.zeros((g.num_vertices, g.num_vertices))
+    np.add.at(a, (g.dst, g.src), val.astype(np.float64))
     h = jnp.asarray(g.features)
-    want = spmm_edgewise(h, jnp.asarray(g.src), jnp.asarray(g.dst),
-                         jnp.asarray(g.edge_norm), g.num_vertices,
-                         sorted_dst=True)
-    arrays, rows = build_dst_blocks(g.src, g.dst, g.edge_norm,
-                                    g.num_vertices, block_rows=128)
-    arrays = {k: jnp.asarray(v) for k, v in arrays.items()}
-    got = spmm_dst_blocked(h, arrays, g.num_vertices, rows)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=1e-5, atol=1e-6)
-    # dynamic values through the slot map (the GAT path)
-    val2 = np.random.default_rng(1).normal(size=g.num_edges).astype(np.float32)
-    want2 = spmm_edgewise(h, jnp.asarray(g.src), jnp.asarray(g.dst),
-                          jnp.asarray(val2), g.num_vertices, sorted_dst=True)
-    got2 = spmm_dst_blocked(h, arrays, g.num_vertices, rows,
-                            val_flat=jnp.asarray(val2))
-    np.testing.assert_allclose(np.asarray(got2), np.asarray(want2),
-                               rtol=1e-5, atol=1e-6)
+    src, dst, v = jnp.asarray(g.src), jnp.asarray(g.dst), jnp.asarray(val)
+    cot = np.random.default_rng(2).normal(
+        size=(g.num_vertices, 24)).astype(np.float32)
+    for chunk in (0, 1000):
+        def f(x, chunk=chunk):
+            return spmm_edgewise(x, src, dst, v, g.num_vertices,
+                                 sorted_dst=True, edge_chunk=chunk)
+
+        out, vjp = jax.vjp(f, h)
+        np.testing.assert_allclose(np.asarray(out),
+                                   a @ np.asarray(g.features, np.float64),
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(np.asarray(vjp(jnp.asarray(cot))[0]),
+                                   a.T @ cot.astype(np.float64),
+                                   rtol=1e-5, atol=1e-5)
 
 
 def test_take_sorted_matches_plain_gather_grad():

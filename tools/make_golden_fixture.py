@@ -69,7 +69,7 @@ def train_numpy_oracle(g, dims, epochs, lr):
 
 def main():
     import jax
-    jax.config.update("jax_platforms", "cpu")  # no TPU needed to make data
+    jax.config.update("jax_platforms", "cpu")  # no accelerator needed to make data
 
     from dorylus_tpu.graph.dataio import save_dataset, load_dataset
     from dorylus_tpu.graph.graph import synthetic_graph

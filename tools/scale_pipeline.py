@@ -8,7 +8,7 @@ EXERCISES the host-side pipeline at the reference's width and scale:
   partition-1b : generate a >=1B-edge clustered graph, range-partition it
                  32 ways, build the exact-wire ragged halo plan AND the
                  full 32-way fused-overlap hyb kernel plans (the same
-                 objects a pod run ships), measuring wall time and peak
+                 objects a multi-device run ships), measuring wall time and peak
                  RSS per phase -> benchmarks/results/partition_1b_r5.json
   train-300m   : train a >=300M-edge graph for several epochs on the
                  8-way virtual CPU mesh with a single-device loss-parity
@@ -52,7 +52,7 @@ def partition_1b(args) -> None:
 
     jax.config.update("jax_platforms", "cpu")
     from dorylus_tpu.graph.partition import partition_graph
-    from dorylus_tpu.ops.hyb_spmm import padded_nbytes
+    from dorylus_tpu.ops.hyb_spmm import tree_nbytes
     from dorylus_tpu.parallel.halo import build_ragged_plan
 
     n = args.shards
@@ -117,8 +117,8 @@ def partition_1b(args) -> None:
                         dynamic=False, gather_dtype=None)
     rec["phases"]["hyb_fused_plan_s"] = round(time.perf_counter() - t0, 1)
     rec["rss_peak_gb"] = round(rss_gb(), 2)
-    rec["plan_padded_gb"] = round(
-        padded_nbytes(op.arrays) / 2**30, 2)
+    rec["plan_gb"] = round(
+        tree_nbytes(op.arrays) / 2**30, 2)
     rec["n_pure_buckets"] = int(op.n_pure)
     rec["feature_shape"] = list(feats_shape)
     rec["note"] = (
@@ -126,7 +126,7 @@ def partition_1b(args) -> None:
         "(run-friendster-gcn:6): range partition, exact-wire ragged halo "
         "plan, and the full fused-overlap hyb kernel plans for all "
         f"{n} shards, built in one process on a 4-core host. The plans "
-        "are the SAME objects ShardedEngine ships to a pod; only device "
+        "are the SAME objects ShardedEngine ships to a mesh; only device "
         "placement is absent here (no 32-chip mesh on this box).")
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / "partition_1b_r5.json").write_text(json.dumps(rec, indent=1))
@@ -182,8 +182,8 @@ def train_300m(args) -> None:
     rec["max_loss_delta"] = round(delta, 8)
     rec["rss_peak_gb"] = round(rss_gb(), 2)
     rec["note"] = (
-        "8-way virtual-CPU-mesh training at 3x the round-4 demonstrated "
-        "scale (sharded_100m_r4.json), with the fused overlap plan and "
+        "8-way virtual-CPU-mesh training at 300M edges, with the fused "
+        "overlap plan and "
         "bf16 gather tables; loss parity vs one device bounds the "
         "sharded transport (halo + psum) numerics. Wall times are a "
         "4-core host timesharing 8 virtual devices — correctness "

@@ -1,10 +1,9 @@
 """32-shard SPMD execution validation on the virtual CPU mesh.
 
 The reference's widest cluster is 32 graph servers
-(/root/reference/benchmarks/run-friendster-gcn:6). The widest committed
-sharded run here was 8-way (sharded_100m_r4.json), so the halo
-all_to_all block permutation, the shared-DP hyb bucket plans, and the
-psum'd update had never executed at reference cluster width. This is
+(benchmarks/run-friendster-gcn:6). This runs the halo all_to_all block
+permutation, the shared-DP hyb bucket plans, and the psum'd update at
+that width on a virtual CPU mesh. This is
 NOT a performance measurement (the host has 4 cores; 32 virtual devices
 timeshare them): it validates that the 32-way program COMPILES and
 EXECUTES, and that its loss trajectory matches single-device to 1e-3
@@ -12,7 +11,7 @@ EXECUTES, and that its loss trajectory matches single-device to 1e-3
 
 Run:
   env JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=32 \
-  python tools/validate_32way.py [--out benchmarks/results/sharded_32way_r4.json]
+  python tools/validate_32way.py [--out benchmarks/results/sharded_32way.json]
 """
 
 from __future__ import annotations

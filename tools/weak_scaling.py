@@ -1,7 +1,7 @@
 """Weak-scaling harness: edges/s at 1..N shards (BASELINE.md north-star:
 >=70% weak-scaling efficiency in edges/s across hosts).
 
-On a pod slice this exercises real ICI/DCN. On a single-chip dev box it runs
+On a multi-device mesh this exercises the real links. On a CPU-only box it runs
 on the virtual CPU mesh — where two artifacts poison naive numbers:
   1. All virtual devices timeshare the host's cores, so the 1-shard
      baseline gets every core while N shards fight for them. `--pin`
@@ -105,7 +105,7 @@ def run_once(args, n: int) -> dict:
     overlap_first = args.overlap != "off"
     # reuse pinned off: this harness measures the SCALING of one fixed
     # kernel; auto-reuse swapping the op between shard counts would muddy
-    # the efficiency ratio (reuse has its own artifacts, reuse_*_r4.json).
+    # the efficiency ratio.
     cfg = TrainConfig(epochs=args.epochs, eval_every=0, kernel=args.kernel,
                       model=args.model, overlap=overlap_first, reuse="off")
     eng = ShardedEngine(g, layers, cfg, mesh=mesh)
